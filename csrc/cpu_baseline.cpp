@@ -9,7 +9,7 @@
 // gradients with the Isserlis-collapsed Hessian, exact block-Thomas
 // natural-gradient solve, and the reference's SEQUENTIAL backtracking
 // shrink loop (first accepted trial wins — early exit, which favors this
-// baseline over the TPU's evaluate-all-trials lockstep).  OpenMP
+// baseline over the engine's evaluate-all-trials lockstep).  OpenMP
 // parallelizes over problems — the batch analog of the reference's
 // factor-level `#pragma omp parallel for` (ngd/NGD-GH-impl.h:31-51).
 //

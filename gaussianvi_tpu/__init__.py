@@ -1,6 +1,7 @@
-"""gaussianvi_tpu — TPU-native Gaussian Variational Inference over factor graphs.
+"""gaussianvi_tpu — batched Gaussian Variational Inference over factor graphs.
 
-A JAX/XLA/Pallas re-design of the capabilities of hzyu17/GaussianVI:
+A JAX/XLA/Pallas re-design of the capabilities of hzyu17/GaussianVI, run on
+NVIDIA GPUs:
 Gaussian VI ``q = N(mu, Lambda^{-1})`` with block-tridiagonal precision,
 natural-gradient and Wasserstein-proximal optimizers, sparse Gauss-Hermite
 quadrature for per-factor expectations, and Gaussian belief propagation for

@@ -28,32 +28,6 @@ def range_cost(x, params):
     return (r_meas - dist) ** 2 / (2.0 * sig_r_sq)
 
 
-def range_cost_block(pts, beacon, r, sig_r_sq):
-    """Block form of :func:`range_cost` for the fused Pallas kernel.
-
-    Params arrive as flattened dict leaves in key order: beacon, r,
-    sig_r_sq.  Must be a module-level function — factor-batch static
-    metadata is compared by identity when stacking problems.  Batch-dim
-    agnostic (``pts [..., d]``), as the kernel contract requires.
-    """
-    dim_x = beacon.shape[-1]
-    pos = pts[..., :dim_x]
-    dist = jnp.sqrt(jnp.sum((pos - beacon) ** 2, axis=-1) + 1e-12)
-    return (r - dist) ** 2 / (2.0 * sig_r_sq)
-
-
-def range_cost_lanes(x, beacon, r, sig_r_sq):
-    """Component form of :func:`range_cost` for the batch-on-lanes
-    quadrature kernel (kernels/quad_lanes.py): ``x`` is a tuple of d
-    broadcast-compatible component arrays, ``beacon`` has its per-factor
-    dim as the LEADING axis; params arrive as flattened dict leaves in key
-    order (beacon, r, sig_r_sq)."""
-    dim_x = beacon.shape[0]
-    d2 = sum((x[j] - beacon[j]) ** 2 for j in range(dim_x))
-    dist = jnp.sqrt(d2 + 1e-12)
-    return (r - dist) ** 2 / (2.0 * sig_r_sq)
-
-
 def simulate_trajectory(num_states, dim_x, dt, seed=0):
     """Ground-truth constant-velocity trajectory + noisy range measurements."""
     rng = np.random.default_rng(seed)
@@ -112,8 +86,6 @@ def build_chain_estimation(
             "sig_r_sq": jnp.full(num_states, sig_r**2, dtype),
         },
         gh_degree=gh_degree,
-        block_cost=range_cost_block,
-        lanes_cost=range_cost_lanes,
         nonneg_cost=True,   # squared residual: E[phi] >= 0 by construction
         quad_rdim=dim_x if marginal_quad else None,
         dtype=dtype,

@@ -54,24 +54,14 @@ def build_planar_planning(
     epsilon: float = 0.4,
     radius: float = 0.2,
     gh_degree: int = 3,
-    patch_size: int | None = None,
     interp: str = "auto",
     marginal_quad: bool = True,
     dtype=None,
 ):
-    """``interp="matmul"``: gather-free one-hot hat-function SDF
-    interpolation (MXU contraction against the whole field,
-    factors.sdf.PlanarSDF.signed_distance_matmul) on the XLA quadrature
-    route — the planning workloads measured gather-BOUND (PERF.md
-    sections 17/29), and this replaces every trial-phase gather with
-    batch-scaling matmul work.
-
-    ``patch_size``: opt-in lanes-quadrature fast path for the obstacle
-    factor (pre-gathered SDF windows; approximate once the marginal spread
-    exceeds the window — see factors.robots.make_patch_cost_2d).
-    Measured SLOWER than the exact path on the 2-D field (bilinear
-    gathers are cheap; the 16x16 windows force an rb=1 kernel — PERF.md
-    section 17): keep the default here, use patches in 3-D."""
+    """``interp``: SDF interpolation of the obstacle factor -- "gather",
+    "matmul" (gather-free one-hot hat-function contraction against the
+    whole field, factors.sdf.PlanarSDF.signed_distance_matmul) or "auto"
+    (resolved per platform, gaussianvi_tpu.resolve.sdf_interp)."""
     dtype = dtype or jnp.zeros(0).dtype
     dim_x, state_dim = 2, 4
     dt = total_time / (num_states - 1)
@@ -89,7 +79,6 @@ def build_planar_planning(
         radius=radius,
         balls_fn=planar_point_balls,
         gh_degree=gh_degree,
-        patch_size=patch_size,
         interp=interp,
         marginal_quad=marginal_quad,
         dtype=dtype,

@@ -55,4 +55,10 @@ def main(out_path: str = "barfoot_1d.png"):
 
 
 if __name__ == "__main__":
+    import jax
+
+    from ..utils.compile_cache import configure_compile_cache
+
+    jax.config.update("jax_enable_x64", True)  # the chain runs in float64
+    configure_compile_cache()
     main(*sys.argv[1:2])

@@ -56,7 +56,6 @@ def build_point3d_planning(
     epsilon: float = 0.4,
     radius: float = 0.2,
     gh_degree: int = 3,
-    patch_size: int | None = None,
     interp: str = "auto",
     marginal_quad: bool = True,
     map_file=None,
@@ -67,11 +66,7 @@ def build_point3d_planning(
     ``map_file``: optional path — the generated SDF is saved there and
     loaded back, exercising the map IO path the reference uses
     (CudaOperation.h:617 reads maps/3dpR/pRSDF3D.bin).
-    ``patch_size``: opt-in lanes-quadrature fast path (approximate; see
-    factors.robots.make_patch_cost_3d).  RECOMMENDED on TPU:
-    ``patch_size=8`` measured 3.2x (NGD) / 2.7x (prox) faster than the
-    exact full-field trilinear path at B=64 restarts with identical
-    median final costs (PERF.md section 17).
+    ``interp``: see :func:`..factors.robots.make_point3d_obstacle_factor`.
     """
     dtype = dtype or jnp.zeros(0).dtype
     dim_x, state_dim = 3, 6
@@ -93,7 +88,6 @@ def build_point3d_planning(
         epsilon=epsilon,
         radius=radius,
         gh_degree=gh_degree,
-        patch_size=patch_size,
         interp=interp,
         marginal_quad=marginal_quad,
         dtype=dtype,
@@ -136,6 +130,12 @@ def run_point3d_planning(method: str = "ngd", **kwargs):
 
 
 if __name__ == "__main__":
+    import jax
+
+    from ..utils.compile_cache import configure_compile_cache
+
+    jax.config.update("jax_enable_x64", True)  # the chain runs in float64
+    configure_compile_cache()
     final, hist, sdf = run_point3d_planning()
     mu = np.asarray(final.mu)
     sd = np.asarray(sdf.signed_distance(jnp.asarray(mu[:, :3])))

@@ -44,13 +44,9 @@ def build_quadrotor_planning(
         dtype=dtype,
     )
 
-    from ..factors.robots import _resolve_interp
+    from ..factors.robots import sdf_lookup
 
-    lookup = (
-        sdf.signed_distance_matmul
-        if _resolve_interp(interp) == "matmul"
-        else sdf.signed_distance
-    )
+    lookup = sdf_lookup(sdf, interp)
 
     def quad_cost(x, params):
         del params

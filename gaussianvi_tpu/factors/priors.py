@@ -23,15 +23,6 @@ from ..ops.precision import matmul
 
 def _as_batch(start, lam, psi, target_mu, target_prec, constant, nb, dtype):
     start_np = np.asarray(start, np.int32)
-    # static uniformity: every K row identical (concrete numpy inputs here),
-    # so consumers (the fused trial kernel) can keep one row resident
-    uniform = all(
-        np.array_equal(a, np.broadcast_to(a[:1], np.shape(a)))
-        for a in (
-            np.asarray(lam), np.asarray(psi), np.asarray(target_mu),
-            np.asarray(target_prec), np.asarray(constant),
-        )
-    )
     return LinearFactorBatch(
         start=jnp.asarray(start_np),
         lam=jnp.asarray(lam, dtype),
@@ -41,7 +32,6 @@ def _as_batch(start, lam, psi, target_mu, target_prec, constant, nb, dtype):
         constant=jnp.asarray(constant, dtype),
         nb=nb,
         slice_offset=detect_slice_offset(start_np),
-        uniform=uniform,
     )
 
 

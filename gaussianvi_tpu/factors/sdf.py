@@ -1,6 +1,6 @@
 """Signed-distance fields and hinge-loss obstacle costs.
 
-TPU-native port of the reference's device-side SDF classes
+Port of the reference's device-side SDF classes
 (helpers/CudaOperation.h: PlanarSDF 21-131, SignedDistanceField 133-322) and
 the obstacle cost used by every robot model (ibid. 491-region):
 
@@ -11,18 +11,17 @@ Here an SDF is a pytree of arrays.  Two interpolation backends:
 * ``signed_distance`` — vectorized gather + bilinear/trilinear blend (the
   direct port; differentiable end-to-end — the reference carries a
   hand-written gradient, jax.grad reproduces it inside each cell).
-* ``signed_distance_matmul`` — the TPU-native formulation: the bilinear
+* ``signed_distance_matmul`` — the gather-free formulation: the bilinear
   blend is a separable HAT-function contraction
   ``sd_q = sum_ij relu(1-|r_q-i|) relu(1-|c_q-j|) F[i, j]``
   (each hat vector has exactly the 2 nonzero bilinear weights), evaluated
-  as dense one-hot MATMULS against the whole field.  XLA gathers
-  serialize on TPU — the planning workloads measured gather-BOUND and
-  flat in batch (PERF.md sections 17/29) — while this form is pure
-  MXU/VPU work that scales with the batch.  The hats reproduce the
+  as dense one-hot MATMULS against the whole field — matrix work that
+  scales with the batch instead of gathers.  The hats reproduce the
   4-corner/8-corner blend exactly (clamping included): identical values
-  to the gather path up to the MXU contraction precision
-  (``_SDF_MATMUL_PRECISION``, bf16x3 ~ f32-accurate products; exactly
-  identical on CPU, where the precision kwarg is a no-op).
+  to the gather path up to the contraction precision
+  (``_SDF_MATMUL_PRECISION``; exactly identical on CPU, where the
+  precision kwarg is a no-op).  Which one a factor uses is resolved per
+  platform (``resolve.sdf_interp``).
 """
 
 from __future__ import annotations
@@ -34,21 +33,18 @@ import jax.numpy as jnp
 from jax import lax
 
 
-# MXU precision for the FIELD-WIDE hat contractions only.  Unlike the
-# tiny-block algebra ops/precision pins to HIGHEST (6 bf16 MXU passes per
-# f32 product — latency-bound there, so the passes are free), these
-# matmuls sweep the whole SDF field per sigma point and ARE MXU-bound on
-# the planners; HIGH (3 passes, ~f32-accurate products via bf16x3) halves
-# that.  Interpolation is a convex combination of stored field values, so
-# f32-class product accuracy is the natural target — HIGHEST buys nothing
-# measurable while doubling the dominant planning cost.  Device A/B and
-# accuracy adjudication: PERF.md (round 5); override for experiments via
-# set_sdf_matmul_precision.
+# Precision of the FIELD-WIDE hat contractions only (the tiny-block
+# algebra is pinned to HIGHEST in ops/precision).  On an NVIDIA H100, XLA
+# computes a float32 dot at HIGH in TF32 (~10 mantissa bits per product);
+# interpolation is a convex combination of stored field values, so the
+# error is relative to the field values, and chip_smoke.py checks the
+# planner's costs against the float64 oracle.  Override for experiments
+# via set_sdf_matmul_precision.
 _SDF_MATMUL_PRECISION = lax.Precision.HIGH
 
 
 def set_sdf_matmul_precision(p) -> None:
-    """Override the SDF hat-contraction MXU precision (A/B experiments;
+    """Override the SDF hat-contraction precision (A/B experiments;
     takes effect at the next trace)."""
     global _SDF_MATMUL_PRECISION
     _SDF_MATMUL_PRECISION = lax.Precision(p) if isinstance(p, str) else p
@@ -111,7 +107,7 @@ class PlanarSDF:
 
     def signed_distance_matmul(self, points: jnp.ndarray) -> jnp.ndarray:
         """Bilinear interpolation as one-hot hat-function matmuls (see
-        module docstring) — the gather-free TPU path.  points [..., 2]."""
+        module docstring) — the gather-free path.  points [..., 2]."""
         idx = self.point_to_cell(points)
         r, c = idx[..., 0], idx[..., 1]
         rows, cols = self.data.shape
@@ -122,7 +118,7 @@ class PlanarSDF:
             0.0, 1.0 - jnp.abs(c[..., None] - jnp.arange(cols, dtype=c.dtype))
         )
         # (wr @ F) then a row-reduction against wc: one [Q, rows] x
-        # [rows, cols] MXU contraction + a VPU reduce — no gathers
+        # [rows, cols] contraction + a reduce — no gathers
         return _sdf_einsum("...i,ij,...j->...", wr, self.data, wc)
 
 
@@ -179,7 +175,7 @@ class SDF3D:
         (gather-free; see module docstring).  points [..., 3].
 
         Memory note: the (z, row) hats are combined into one
-        ``[..., nz, rows]`` operand before the MXU contraction against
+        ``[..., nz, rows]`` operand before the contraction against
         the field — for Q queries that intermediate is Q * nz * rows
         elements, so this path suits moderate fields/batches (the exact
         trilinear blend fundamentally needs a [Q, V^(2/3)] operand in

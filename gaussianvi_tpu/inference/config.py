@@ -24,16 +24,14 @@ class GVIConfig:
     # alpha * new + (1 - alpha) * current (the CUDA variant's set_alpha,
     # GVI-GH-Cuda-impl.h:112-114; 1.0 = plain update, the reference default)
     ema_alpha: float = 1.0
-    # chain-recurrence implementation: "seq" (O(N) depth scans, least total
-    # work — measured fastest XLA path at every N on both CPU and TPU),
-    # "assoc" (O(log N) depth associative scans; ~2.5x seq's cost on TPU at
-    # these block sizes, kept for very long chains / future hardware),
-    # "lanes" (Pallas whole-chain kernel, the TPU fast path; ~6x faster than
-    # seq at N=32 and flat in N), or "auto" — "lanes" when running on TPU
-    # (the kernels fall back to scans for chains over their VMEM budget),
-    # else "seq" (lanes would interpret off-TPU)
+    # chain-recurrence implementation: "seq" (O(N)-depth scans, the least
+    # total work), "assoc" (O(log N)-depth associative scans, for very long
+    # chains), "kernel" (the Pallas chain kernel, kernels/chain_block.py;
+    # GPU only) or "auto" -- resolved per platform and shape by
+    # gaussianvi_tpu.resolve.chain_impl
     chain_impl: str = "auto"
-    assoc_threshold: int = 1_000_000  # "auto" no longer switches to assoc
+    # "auto" picks "assoc" over "seq" for chains at least this long
+    assoc_threshold: int = 1_000_000
     # line-search evaluation strategy; both select the IDENTICAL iterate
     # (the first sufficiently-decreasing trial of the same schedule,
     # GVI-GH-impl.h:76-118):
@@ -43,44 +41,6 @@ class GVIConfig:
     #               (the reference's sequential shrink; evaluates ~1 trial
     #               per iteration at steady state instead of all 11)
     linesearch: str = "batched"
-    # use the fused Pallas moments kernel for factor batches that provide a
-    # block-form cost (NonlinearFactorBatch.block_cost)
-    use_pallas: bool = False
-    # sigma-point quadrature backend for factor batches that provide a
-    # component-form cost (NonlinearFactorBatch.lanes_cost):
-    #   "xla"   — fused einsums (materializes the [B*K, M, d] sigma tensors)
-    #   "lanes" — Pallas batch-on-lanes kernel (kernels/quad_lanes.py): the
-    #             whole quadrature stays in VMEM; the TPU fast path for the
-    #             line-search cost re-evaluations
-    #   "auto"  — "lanes" whenever the chain runs the lanes kernels (which
-    #             chain_impl="auto" selects on TPU), else "xla"
-    # Batches without lanes_cost always take the XLA path;
-    # moments_eval_dtype="bfloat16" composes with lanes (offsets quantized
-    # in-kernel), "float16" forces the XLA path.
-    quad_impl: str = "auto"
-    # fused line-search trial evaluation (kernels/fused_trials.py): ONE
-    # Pallas program runs chain + quadrature + linear costs for ALL trial
-    # steps, forming the trial iterates in-kernel — eliminates the
-    # trial-batch pack/unpack copies (measured 25% of the round-2
-    # iteration).  "auto" = on whenever the resolved chain/quad impls are
-    # lanes, linesearch is "batched", every nonlinear batch is
-    # lanes-eligible (nb == 1, lanes_cost, eval_dtype None or bfloat16),
-    # every linear batch spans nb <= 2, and the shape fits the kernel's
-    # VMEM budget;
-    # "off" forces the separate-kernel path (A/B hook); "on" asserts
-    # eligibility.
-    fused_trials: str = "auto"
-    # fused NGD gradient step (kernels/fused_gradient.py): ONE Pallas
-    # program computes the iterate's covariance, the sigma-point moment
-    # quadrature, the joint (Vdmu, Vddmu) assembly, dprec, and BOTH
-    # natural-gradient block-Thomas solves — removing the residual width-B
-    # pack/unpack copies around the gradient phases (measured 16% of the
-    # B=1024 iteration after round 3) and the fused-trials path's separate
-    # accepted-iterate chain call.  Same eligibility rules and operand prep
-    # as fused_trials (minus the batched-linesearch requirement); NGD only.
-    # "auto" = on when eligible; "off" forces the separate kernels (A/B
-    # hook); "on" asserts eligibility.
-    fused_gradient: str = "auto"
     # quantize the sigma-point OFFSETS (x - mu) to this dtype before
     # evaluating phi ("bfloat16" / "float16"; None = full precision) —
     # compresses the [K, M, d] sigma-offset tensor, the hot loop's largest
@@ -90,15 +50,4 @@ class GVIConfig:
     # evaluation (measured envelope on residual costs: bf16 < 3e-3, fp16
     # < 1e-4 relative E[phi] error — tests/test_chain_estimation.py).
     # NGD path only (prox stays full precision).
-    #
-    # Interaction with the lanes kernels (the TPU fast path): "bfloat16"
-    # COMPOSES — the offsets are quantized inside the quad/fused-trial
-    # kernels, so the fast path is kept.  Note the compression benefit is an
-    # XLA-path property (the [K, M, d] offset tensor lives in HBM there);
-    # inside the lanes kernels offsets never leave VMEM, so with lanes
-    # active the setting buys no memory and costs two casts — prefer None
-    # unless you need numerics consistent with an XLA-path run or the shape
-    # overflows the lanes VMEM budget (where the XLA fallback then benefits
-    # from the compression).  "float16" has no native TPU cast and forces
-    # the XLA quadrature path.
     moments_eval_dtype: str | None = None

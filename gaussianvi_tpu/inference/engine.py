@@ -27,14 +27,10 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
+from .. import resolve
 from ..factors import moments as mm
 from ..ops.blocktridiag import BlockTridiag
-from .graph import FactorGraph, gather_marginals, scatter_gradients
-
-# A/B hook (scripts/linear_chain_ab.py): blockwise edge-factor costs vs the
-# assembled-marginal form.  Same value either way; blockwise skips the
-# [K, 2s, 2s] edge-covariance materialization on the trial batch.
-_LINEAR_CHAIN_COSTS = True
+from .graph import FactorGraph, gather_marginals
 
 
 def vary_tree(tree, axes: tuple[str, ...]):
@@ -59,300 +55,28 @@ def vary_tree(tree, axes: tuple[str, ...]):
 
 
 class LocalEngine:
-    """Single-device hooks: the whole graph lives on this device."""
+    """Single-device hooks: the whole graph lives on this device.
+
+    ``platform`` names the device the engine's program compiles for (None:
+    :func:`..resolve.target_platform`); "auto" implementation choices in
+    ``config`` resolve against it (:mod:`..resolve`)."""
 
     # mesh axes over which loop-carried scalars become varying (none here)
     carry_axes: tuple[str, ...] = ()
-    # the eval_dtype the fused trial/gradient kernels were built with
-    # (run_gvi only takes a fused path when its eval_dtype matches)
-    fused_eval_dtype = None
-    fused_grad_eval_dtype = None
-    # Pallas interpret-mode override for the fused kernels (None = the
-    # kernels' own default: compiled iff the PROCESS default backend is
-    # TPU).  Engines built for a mesh whose devices differ from the
-    # process default (e.g. the dryrun's virtual CPU mesh in a TPU-default
-    # process) must pass True, or the kernels try to compile on CPU.
-    kernel_interpret: bool | None = None
 
-    def __init__(self, graph: FactorGraph, config, use_pallas=None,
-                 quad_impl=None):
-        from .optimize import _chain_ops, resolve_chain_impl
+    def __init__(self, graph: FactorGraph, config, platform: str | None = None):
+        from .optimize import chain_ops
 
         self.graph = graph
         self.config = config
-        self.use_pallas = (
-            config.use_pallas if use_pallas is None else use_pallas
+        platform = platform or resolve.target_platform()
+        self.chain_impl = resolve.chain_impl(
+            platform, config.chain_impl, graph.num_states, graph.state_dim,
+            config.assoc_threshold,
+            sharded=bool(self.carry_axes),  # mesh axes: under shard_map
         )
-        if quad_impl is None:
-            quad_impl = config.quad_impl
-        if quad_impl == "auto":
-            # the TPU fast-path bundle: lanes quadrature whenever the chain
-            # runs the lanes kernels (i.e. by default on TPU); per-batch
-            # shape eligibility is still checked in moments._lanes_eligible
-            chain = resolve_chain_impl(config, graph.num_states)
-            quad_impl = "lanes" if chain == "lanes" else "xla"
-        self.quad_impl = quad_impl
-        self._cov_fn, self._solve_fn = _chain_ops(config, graph.num_states)
-        self._fused_spec_cache = None
-        if quad_impl == "lanes" and (
-            config.fused_trials != "off" or config.fused_gradient != "off"
-        ):
-            self._fused_spec_cache = self._build_fused_specs(config)
-        self._fused_trials = None
-        if config.fused_trials != "off":
-            self._fused_trials = self._build_fused_trials(config)
-        if config.fused_trials == "on" and self._fused_trials is None:
-            raise ValueError(
-                "fused_trials='on' but the graph/config is not eligible "
-                "(needs lanes quad, batched linesearch, lanes_cost on every "
-                "nonlinear batch with nb == 1 and no lanes_prep, nb<=2 "
-                "linear batches, eval_dtype None or bfloat16, and a shape "
-                "within the kernel's VMEM budget — see README 'Execution "
-                "paths & fused-kernel eligibility')"
-            )
-        self._fused_gradient = None
-        if config.fused_gradient != "off":
-            self._fused_gradient = self._build_fused_gradient(config)
-        if config.fused_gradient == "on" and self._fused_gradient is None:
-            raise ValueError(
-                "fused_gradient='on' but the graph/config is not eligible "
-                "(needs lanes quad, lanes_cost on every nonlinear batch "
-                "with nb == 1, nb<=2 linear batches, eval_dtype None or "
-                "bfloat16, and a shape within the kernel's VMEM budget — "
-                "see README 'Execution paths & fused-kernel eligibility')"
-            )
-
-    def _build_fused_specs(self, config, allow_prep: bool = False):
-        """Shared static eligibility + operand prep for the fused trial AND
-        gradient kernels (they consume the SAME flat operand tuple:
-        quadrature rules + linear residual forms).  Returns
-        (nl_specs, lin_specs, flat, eval_dtype, preps) or None when
-        ineligible.
-
-        ``allow_prep``: marginal-dependent params (``lanes_prep``, e.g. SDF
-        patches) depend only on the factor MEANS.  The trial kernel forms
-        its trial means IN-kernel, so prep batches disqualify it
-        (allow_prep=False); the GRADIENT kernel evaluates at the current
-        iterate whose means are known before the call, so its prep leaves
-        can be computed per call (allow_prep=True) — ``preps`` then holds
-        one ``(prep_fn, start, slice_offset, leaf_idx, n_leaves)`` per prep
-        batch (None for static batches) and the ``flat`` slots at
-        ``leaf_idx:leaf_idx + n_leaves`` carry None placeholders filled by
-        :meth:`fused_gradient`."""
-        from ..kernels.fused_trials import (
-            LinTrialSpec,
-            NLTrialSpec,
-            linear_residual_form,
-        )
-
-        g, cfg = self.graph, config
-        s = g.state_dim
-        # centered bf16 offset quantization composes (quantized in-kernel);
-        # fp16 has no native TPU cast and keeps the separate-kernel path
-        eval_dtype = (
-            jnp.dtype(cfg.moments_eval_dtype)
-            if cfg.moments_eval_dtype else None
-        )
-        if eval_dtype is not None and eval_dtype != jnp.dtype(jnp.bfloat16):
-            return None
-        nl_specs, lin_specs, flat, preps = [], [], [], []
-        for fb in g.nonlinear:
-            if fb.lanes_cost is None or fb.nb != 1:
-                return None
-            if fb.lanes_prep is not None and not allow_prep:
-                return None
-            if fb.slice_offset is None and not fb.shared_start:
-                return None
-            k = fb.start.shape[0]
-            if fb.lanes_prep is not None:
-                out = jax.eval_shape(
-                    fb.lanes_prep,
-                    jax.ShapeDtypeStruct((k, fb.dim), fb.nodes.dtype),
-                )
-                leaf_shapes = tuple(
-                    l.shape[1:] for l in jax.tree.leaves(out)
-                )
-                leaves = (None,) * len(leaf_shapes)
-                leaf_idx = len(flat) + (
-                    1 if fb.slice_offset is None else 0
-                ) + 2  # after (starts?), nodes, weights
-                preps.append((
-                    fb.lanes_prep, fb.start, fb.slice_offset, leaf_idx,
-                    len(leaf_shapes),
-                ))
-            else:
-                leaves_v = (
-                    tuple(jax.tree.leaves(fb.params))
-                    if fb.params is not None else ()
-                )
-                leaf_shapes = tuple(l.shape[1:] for l in leaves_v)
-                leaves = leaves_v
-                preps.append(None)
-            nl_specs.append(NLTrialSpec(
-                fb.lanes_cost,
-                leaf_shapes,
-                k,
-                fb.nodes.shape[0],
-                fb.slice_offset,
-                fb.quad_rdim,
-            ))
-            if fb.slice_offset is None:
-                flat.append(fb.start)
-            flat += [fb.nodes, fb.weights, *leaves]
-        for lb in g.linear:
-            if lb.nb not in (1, 2):
-                return None
-            if lb.slice_offset is None and not lb.shared_start:
-                return None
-            rows = slice(0, 1) if lb.uniform else slice(None)
-            a, pm, prec_c = linear_residual_form(
-                lb.lam[rows], lb.psi[rows], lb.target_mu[rows],
-                lb.target_prec[rows], lb.constant[rows],
-            )
-            lam_r = lb.lam[rows]
-            if lb.nb == 2:
-                a = jnp.stack(
-                    [a[:, :s, :s], a[:, s:, s:], a[:, :s, s:]], axis=1
-                )
-            else:
-                a = a[:, None]
-            lin_specs.append(LinTrialSpec(
-                lb.nb, lb.start.shape[0], a.shape[0], lb.lam.shape[1],
-                lb.slice_offset,
-            ))
-            if lb.slice_offset is None:
-                flat.append(lb.start)
-            flat += [a, lam_r, pm, prec_c]
-        return (
-            tuple(nl_specs), tuple(lin_specs), tuple(flat), eval_dtype,
-            tuple(preps),
-        )
-
-    def _build_fused_trials(self, config):
-        """Static eligibility + operand prep for the fused line-search trial
-        kernel (:mod:`..kernels.fused_trials`); None when ineligible."""
-        from ..kernels.fused_trials import (
-            make_trial_costs_vmappable,
-            trials_fit_lanes,
-        )
-
-        if config.linesearch != "batched":
-            return None
-        if self._fused_spec_cache is None:
-            return None
-        nl_specs, lin_specs, flat, eval_dtype, _ = self._fused_spec_cache
-        g = self.graph
-        n, s = g.num_states, g.state_dim
-        n_trials = config.niters_backtrack + 1
-        if not trials_fit_lanes(n, s, n_trials, nl_specs, lin_specs):
-            return None
-        self._fused_specs = (nl_specs, lin_specs)  # introspection/probing
-        fn = make_trial_costs_vmappable(
-            n, s, n_trials, nl_specs, lin_specs, eval_dtype=eval_dtype,
-            interpret=self.kernel_interpret,
-        )
-        self.fused_eval_dtype = eval_dtype
-        return fn, flat
-
-    def _build_fused_gradient(self, config):
-        """Static eligibility + operand prep for the fused gradient kernel
-        (:mod:`..kernels.fused_gradient`); None when ineligible.  Shares
-        the trial kernel's operand tuple; additionally admits
-        ``lanes_prep`` factor batches (SDF patches) — the gradient
-        evaluates at the CURRENT iterate, so the marginal-dependent
-        leaves are computed per call from the current means and spliced
-        into the flat operands (the trial kernel cannot do this: its
-        trial means only exist in-kernel)."""
-        from ..kernels.fused_gradient import (
-            grad_fits_lanes,
-            make_gradient_vmappable,
-        )
-
-        specs = self._fused_spec_cache
-        if specs is None and self.quad_impl == "lanes":
-            # the strict (trial-kernel) build may have failed solely on a
-            # lanes_prep batch; retry permissively — but only on the lanes
-            # fast path (quad_impl is the platform gate: off-TPU it is
-            # "xla" and the fused kernels would run interpreted)
-            specs = self._build_fused_specs(config, allow_prep=True)
-        if specs is None:
-            return None
-        nl_specs, lin_specs, flat, eval_dtype, preps = specs
-        g = self.graph
-        n, s = g.num_states, g.state_dim
-        if not grad_fits_lanes(n, s, nl_specs, lin_specs):
-            return None
-        fn = make_gradient_vmappable(
-            n, s, nl_specs, lin_specs, eval_dtype=eval_dtype,
-            interpret=self.kernel_interpret,
-        )
-        self.fused_grad_eval_dtype = eval_dtype
-        return fn, flat, preps
-
-    @property
-    def fused_trials_ready(self) -> bool:
-        return self._fused_trials is not None
-
-    @property
-    def fused_gradient_ready(self) -> bool:
-        return self._fused_gradient is not None
-
-    def fused_trial_costs(self, state, dmu, dprec, trials):
-        """All line-search trials in one kernel: returns
-        (ld [T], fc tuple of [T, K] per batch — nonlinear first, then
-        linear, the same order as :meth:`factor_costs_raw`)."""
-        fn, flat = self._fused_trials
-        ld, fc_nl, fc_lin = fn(
-            state.mu, dmu, state.precision.diag, state.precision.off,
-            dprec.diag, dprec.off, trials, *flat,
-        )
-        return ld, fc_nl + fc_lin
-
-    def reduce_trial_costs(self, trial_lds, fc_t):
-        """Total per-trial costs from the fused kernel's outputs:
-        0.5 logdet + the (already tempered) per-factor sums.  Sharded
-        engines override to psum their sharded batches so every device
-        sees the same [T] costs and the accept decisions stay lockstep."""
-        return 0.5 * trial_lds + sum(
-            (jnp.sum(f, axis=-1) for f in fc_t),
-            jnp.zeros_like(trial_lds),
-        )
-
-    @staticmethod
-    def _splice_preps(flat, preps, mu):
-        """Fill the reserved ``lanes_prep`` operand slots: the
-        marginal-dependent leaves (SDF patches) are computed from the
-        CURRENT means (XLA gathers, exactly the separate path's prep)."""
-        if not any(p is not None for p in preps):
-            return flat
-        flat = list(flat)
-        for p in preps:
-            if p is None:
-                continue
-            prep_fn, start, slice_offset, leaf_idx, n_leaves = p
-            if slice_offset is not None:
-                k = start.shape[0]
-                mu_k = jax.lax.slice_in_dim(
-                    mu, slice_offset, slice_offset + k, axis=0
-                )
-            else:
-                mu_k = mu[start]
-            leaves = jax.tree.leaves(prep_fn(mu_k))
-            flat[leaf_idx:leaf_idx + n_leaves] = leaves
-        return tuple(flat)
-
-    def fused_gradient(self, state, temperature):
-        """The whole NGD gradient step in one kernel: covariance of the
-        CURRENT iterate, joint (Vdmu, Vddmu) assembly, and both
-        natural-gradient solves.  Returns (cov_diag, cov_off, logdet,
-        dprec BlockTridiag, dmu, dmu_fallback)."""
-        fn, flat, preps = self._fused_gradient
-        flat = self._splice_preps(flat, preps, state.mu)
-        covd, covo, ld, dpd, dpo, dmu, dfb = fn(
-            state.mu, state.precision.diag, state.precision.off,
-            temperature, *flat,
-        )
-        return covd, covo, ld, BlockTridiag(dpd, dpo), dmu, dfb
+        self.sqrtm_method = resolve.sqrtm_method(platform, "auto")
+        self._cov_fn, self._solve_fn = chain_ops(self.chain_impl)
 
     # -- chain ---------------------------------------------------------------
     def cov_logdet(self, prec: BlockTridiag):
@@ -370,13 +94,9 @@ class LocalEngine:
             mu_k, cov_k = gather_marginals(
                 fb.start, fb.nb, mu, cov_diag, cov_off, fb.slice_offset
             )
-            out.append(mm.batch_phi(
-                fb, mu_k, cov_k, eval_dtype, self.quad_impl
-            ))
+            out.append(mm.batch_phi(fb, mu_k, cov_k, eval_dtype))
         for lb in g.linear:
-            out.append(mm.batch_linear_cost(
-                lb, mu, cov_diag, cov_off, _LINEAR_CHAIN_COSTS
-            ))
+            out.append(mm.batch_linear_cost(lb, mu, cov_diag, cov_off))
         return tuple(out)
 
     def reduce_fc(self, fc_tuple):
@@ -391,22 +111,21 @@ class LocalEngine:
         from .gvi import ngd_gradients
 
         return ngd_gradients(
-            self.graph, mu, cov_diag, cov_off, temperature,
-            self.use_pallas, eval_dtype, self.quad_impl,
+            self.graph, mu, cov_diag, cov_off, temperature, eval_dtype
         )
 
     def prox_gradients(self, mu, cov_diag, cov_off, step_size):
         from .gvi import prox_gradients
 
         return prox_gradients(
-            self.graph, mu, cov_diag, cov_off, step_size, self.quad_impl
+            self.graph, mu, cov_diag, cov_off, step_size, self.sqrtm_method
         )
 
     # -- solve ---------------------------------------------------------------
     def solve_pair(self, bt_main: BlockTridiag, bt_fallback: BlockTridiag,
                    rhs):
         """Solve both systems (main metric + SPD fallback) against the same
-        rhs [N, s]; ONE batched chain call so the lanes kernel packs both."""
+        rhs [N, s]; ONE batched chain call so the chain kernel takes both."""
         flat = rhs.reshape(-1)
         sols = jax.vmap(lambda d, o: self._solve_fn(BlockTridiag(d, o), flat))(
             jnp.stack([bt_main.diag, bt_fallback.diag]),

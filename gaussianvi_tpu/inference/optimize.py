@@ -40,51 +40,34 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
-from ..ops.blocktridiag import BlockTridiag, gbp_covariance_logdet, solve
+from ..ops.blocktridiag import (
+    BlockTridiag,
+    gbp_covariance_logdet,
+    in_float64,
+    solve,
+)
 from ..ops.parallel_chain import gbp_covariance_logdet_assoc, solve_assoc
 
 
-def _target_platform() -> str:
-    """Platform the next jit will land on: honors a ``jax.default_device``
-    context (e.g. the bench's host-CPU baseline on a TPU-attached process)
-    before falling back to the process default backend."""
-    dev = jax.config.jax_default_device
-    if dev is not None:
-        return getattr(dev, "platform", str(dev))
-    return jax.default_backend()
-
-
-def resolve_chain_impl(config, num_states: int) -> str:
-    """Static resolution of ``chain_impl='auto'``: the lanes Pallas kernels
-    on TPU (the measured fast path — ~6x seq at N=32; they carry their own
-    scan fallback for chains over the VMEM budget), seq scans elsewhere
-    (lanes would run in interpret mode off-TPU).
-
-    Resolution happens at TRACE time: reusing one traced function across
-    ``jax.default_device`` contexts with different platforms would keep the
-    first resolution (pin ``chain_impl`` explicitly in that case)."""
-    impl = config.chain_impl
-    if impl != "auto":
-        return impl
-    if _target_platform() == "tpu":
-        return "lanes"
-    return "assoc" if num_states >= config.assoc_threshold else "seq"
-
-
-def _chain_ops(config, num_states):
-    # static choice of chain kernels: "seq" scans, "assoc" log-depth scans,
-    # or the "lanes" Pallas kernel (batch-on-lanes; efficient under vmap)
-    impl = resolve_chain_impl(config, num_states)
-    if impl == "lanes":
-        from ..kernels.chain_lanes import (
-            gbp_covariance_logdet_lanes_single,
-            solve_lanes_single,
+def chain_ops(impl: str):
+    """(cov_logdet, solve) single-problem chain functions for a resolved
+    ``chain_impl`` (see :func:`..resolve.chain_impl`), computed in float64
+    (:func:`..ops.blocktridiag.in_float64`: float32 data need 64-bit
+    types)."""
+    if impl == "kernel":
+        from ..kernels.chain_block import (
+            gbp_covariance_logdet_single,
+            solve_single,
         )
 
-        return gbp_covariance_logdet_lanes_single, solve_lanes_single
-    if impl == "assoc":
-        return gbp_covariance_logdet_assoc, solve_assoc
-    return gbp_covariance_logdet, solve
+        ops = gbp_covariance_logdet_single, solve_single
+    elif impl == "assoc":
+        ops = gbp_covariance_logdet_assoc, solve_assoc
+    else:
+        ops = gbp_covariance_logdet, solve
+    return tuple(in_float64(op) for op in ops)
+
+
 from .config import GVIConfig
 from .engine import LocalEngine, vary_tree
 from .graph import FactorGraph, GaussianState
@@ -123,13 +106,6 @@ class _Carry(NamedTuple):
     # covariance + logdet of state.precision, carried so the accepted
     # line-search trial's chain computation is reused instead of redone at
     # the top of the next iteration (identical input -> identical result).
-    # EXCEPTION: on the fused-gradient path these two fields lag one
-    # update — the gradient kernel recomputes covariance from
-    # state.precision in-VMEM at the TOP of every iteration and the loop
-    # rebinds before any use, so no chain call refreshes them after an
-    # accepted step.  External consumers of make_gvi_step's carry must
-    # read covariance from the step's records (or recompute), not from
-    # these fields, when engine.fused_gradient_ready is set.
     cov_diag: jnp.ndarray
     cov_off: jnp.ndarray
     logdet: jnp.ndarray
@@ -149,31 +125,12 @@ def make_gvi_step(engine, config: GVIConfig, method: str = "ngd"):
 
     Exposed so large shapes can run the loop from the host with the body
     jitted ONCE per iteration program instead of one whole-run program —
-    the workaround for whole-program compile limits (PERF.md N-axis
-    notes); :func:`run_gvi` itself scans this same body."""
+    the workaround for whole-program compile limits; :func:`run_gvi`
+    itself scans this same body."""
     if method not in ("ngd", "prox"):
         raise ValueError(f"unknown method {method!r}")
     temper_costs = method == "ngd"
     eval_dtype = _eval_dtype(config, method)
-    # fused line-search path: one Pallas program evaluates every trial
-    # (kernels/fused_trials.py); engine eligibility is static.  The kernel
-    # bakes in the engine's eval_dtype (None, or bf16 quantized in-kernel),
-    # so this run's eval_dtype must match (prox always runs at None).
-    use_fused = (
-        config.linesearch == "batched"
-        and getattr(engine, "fused_trials_ready", False)
-        and eval_dtype == getattr(engine, "fused_eval_dtype", None)
-    )
-    # fused gradient path (kernels/fused_gradient.py): covariance + moments
-    # + NGD assembly + both Thomas solves in one kernel.  It recomputes the
-    # iterate's covariance in-kernel, so the carried blocks are bypassed
-    # (rebound below) and — combined with fused trials — the accepted
-    # iterate needs NO separate chain call at all.
-    use_fused_grad = (
-        method == "ngd"
-        and getattr(engine, "fused_gradient_ready", False)
-        and eval_dtype == getattr(engine, "fused_grad_eval_dtype", None)
-    )
 
     def temper(fc_raw, temperature):
         # elementwise division exactly as the cost path applies it, so the
@@ -204,23 +161,11 @@ def make_gvi_step(engine, config: GVIConfig, method: str = "ngd"):
         if method == "ngd":
             # trial schedule: base * 0.75^t, t = 1..niters_backtrack+1
             # (GVI-GH-impl.h:76-86; the pow(base, B) line is commented
-            # out upstream) — shared by both gradient paths below
+            # out upstream)
             n_trials = config.niters_backtrack + 1
             trials = config.step_size_base * (
                 config.step_decay ** jnp.arange(1, n_trials + 1, dtype=dtype)
             )
-        if method == "ngd" and use_fused_grad:
-            # one kernel: covariance of the current iterate (rebinding the
-            # carried blocks — same values, recomputed in-VMEM), gradient
-            # quadrature, joint assembly, dprec, and both solves.  An
-            # indefinite Vddmu NaNs the main solve in-kernel and the
-            # finite-check below picks the SPD fallback, exactly like the
-            # separate path.
-            (cov_diag, cov_off, _ld_g, dprec, dmu, dmu_fb) = (
-                engine.fused_gradient(state, temperature)
-            )
-            dmu = jnp.where(engine.all_finite(dmu), dmu, dmu_fb)
-        elif method == "ngd":
             vdmu, vddmu = engine.ngd_gradients(
                 state.mu, cov_diag, cov_off, temperature, eval_dtype
             )
@@ -293,21 +238,6 @@ def make_gvi_step(engine, config: GVIConfig, method: str = "ngd"):
             (_, accepted, sel, c_sel, cd_sel, co_sel, ld_sel, fc_sel) = (
                 lax.while_loop(ls_cond, ls_body, init_ls)
             )
-        elif use_fused:
-            # every trial in ONE kernel; no covariance outputs (the accepted
-            # iterate's chain is recomputed once below)
-            trial_lds, trial_fcs = engine.fused_trial_costs(
-                state, dmu, dprec, trials
-            )
-            fc_t = temper(trial_fcs, temperature)
-            trial_costs = engine.reduce_trial_costs(trial_lds, fc_t)
-            ok = trial_costs < cost_iter  # NaN costs compare False
-            accepted = jnp.any(ok)
-            sel = jnp.where(accepted, jnp.argmax(ok), n_trials - 1)
-            c_sel = trial_costs[sel]
-            ld_sel = trial_lds[sel]
-            fc_sel = jax.tree.map(lambda f: f[sel], trial_fcs)
-            cd_sel = co_sel = None
         elif config.linesearch == "batched":
             (trial_costs, trial_cds, trial_cos, trial_lds, trial_fcs) = (
                 jax.vmap(trial_cost)(trials)
@@ -389,28 +319,6 @@ def make_gvi_step(engine, config: GVIConfig, method: str = "ngd"):
             )
             new_fc_raw = engine.factor_costs_raw(
                 new_state.mu, new_cov_diag, new_cov_off, eval_dtype
-            )
-        elif use_fused:
-            upd = jnp.logical_and(keep, take)
-            if use_fused_grad:
-                # the NEXT iteration's gradient kernel recomputes covariance
-                # from the updated precision in-kernel (and this iteration's
-                # record already used the kernel's blocks via the rebinding
-                # above), so no chain call is needed here at all — the
-                # carried blocks are dead on this path
-                new_cov_diag, new_cov_off = cov_diag, cov_off
-            else:
-                # the fused trial kernel emits no covariance blocks;
-                # recompute the chain ONCE at the post-update state (width
-                # B, vs the T-wide trial batch).  When nothing was accepted
-                # this reproduces the carried blocks bitwise (same kernel,
-                # same precision input).
-                new_cov_diag, new_cov_off, _ = engine.cov_logdet(
-                    new_state.precision
-                )
-            new_logdet = jnp.where(upd, ld_sel, logdet)
-            new_fc_raw = jax.tree.map(
-                lambda a, b: jnp.where(upd, a, b), fc_sel, fc_raw
             )
         else:
             # carry the accepted trial's covariance + factor expectations
@@ -501,23 +409,12 @@ def run_gvi_carry(
     ``niters_lowtemp`` temperature switch lands on the same global
     iteration index as the uninterrupted run) and the loop scalars start
     from the checkpointed :class:`LoopState`.
-
-    On the fused-gradient path the in-loop carry's (cov_diag, cov_off) lag
-    one accepted update (the kernel recomputes covariance in-VMEM at the
-    top of each iteration, so nothing in the loop refreshes them) — before
-    returning, they are recomputed here from the final precision, so the
-    returned carry's covariance fields are ALWAYS those of ``carry.state``.
     """
     iteration = make_gvi_step(engine, config, method)
     init_carry = make_gvi_init(engine, init_state, config, method, loop)
     final_carry, records = lax.scan(
         iteration, init_carry, jnp.arange(start_iteration, config.niters)
     )
-    if method == "ngd" and getattr(engine, "fused_gradient_ready", False):
-        cd, co, ld = engine.cov_logdet(final_carry.state.precision)
-        final_carry = final_carry._replace(
-            cov_diag=cd, cov_off=co, logdet=ld
-        )
     history = GVIHistory(*records)
     return final_carry, history
 

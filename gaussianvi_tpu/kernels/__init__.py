@@ -1,26 +1,11 @@
-from .chain_lanes import (
-    gbp_covariance_logdet_lanes,
-    gbp_covariance_logdet_lanes_single,
-    solve_lanes,
-    solve_lanes_single,
-)
-from .fused_moments import (
-    fused_moments,
-    fused_moments_vmappable,
-    make_batched_cost,
-)
-from .fused_trials import (
-    LinTrialSpec,
-    NLTrialSpec,
-    make_trial_costs_vmappable,
-    trial_costs_lanes,
-    trials_fit_lanes,
+from .chain_block import (
+    gbp_covariance_logdet_kernel,
+    gbp_covariance_logdet_single,
+    solve_kernel,
+    solve_single,
 )
 
 __all__ = [
-    "fused_moments", "fused_moments_vmappable", "make_batched_cost",
-    "gbp_covariance_logdet_lanes", "gbp_covariance_logdet_lanes_single",
-    "solve_lanes", "solve_lanes_single",
-    "LinTrialSpec", "NLTrialSpec", "make_trial_costs_vmappable",
-    "trial_costs_lanes", "trials_fit_lanes",
+    "gbp_covariance_logdet_kernel", "gbp_covariance_logdet_single",
+    "solve_kernel", "solve_single",
 ]

@@ -9,11 +9,11 @@ block-tridiagonal nnz pattern (gvibase/GVI-GH.h:214-230) and computes
 * the entropy term as ``0.5 * sum(log D_ii)`` of the LDLT
   (gvibase/GVI-GH-impl.h:192-196).
 
-TPU-native design: a ``BlockTridiag`` pytree of two dense stacks
-``diag [N, s, s]`` and ``off [N-1, s, s]`` (block (i, i+1)).  All chain
-recurrences are ``lax.scan`` over the state axis with small dense blocks —
-each step is a batched s x s op XLA maps onto the MXU; the per-edge 2s x 2s
-inversions of GBP are vmapped.  The dense D x D matrix is never materialized
+Design: a ``BlockTridiag`` pytree of two dense stacks ``diag [N, s, s]``
+and ``off [N-1, s, s]`` (block (i, i+1)).  All chain recurrences here are
+``lax.scan`` over the state axis with small dense blocks (the ``seq``
+backend; ``ops/parallel_chain`` and ``kernels/chain_block`` are the others);
+the per-edge 2s x 2s inversions of GBP are vmapped.  The dense D x D matrix is never materialized
 except in tests.
 """
 
@@ -145,6 +145,43 @@ class BlockTridiag:
             y = y.at[:-1].add(einsum("nij,nj->ni", self.off, xb[1:]))
             y = y.at[1:].add(einsum("nji,nj->ni", self.off, xb[:-1]))
         return y.reshape(x.shape)
+
+
+def in_float64(fn):
+    """``fn`` computed in float64 on float32 inputs, its float outputs cast
+    back to float32; ``fn`` itself on float64 inputs.  The engines run
+    every chain op through this, so float32 data need 64-bit types
+    (``jax_enable_x64``); without them this raises rather than run the
+    chain in float32.
+
+    The chain recurrences are where a float32 run loses accuracy: the
+    forward Schur pivots ``D_i - B^T F^{-1} B`` cancel, and the covariance
+    blocks built on them move the line search's decisions, so float32
+    trajectories drift from the float64 ones (PERF.md).  The arrays a chain
+    op touches are small beside the quadrature's, so float64 here is
+    cheap."""
+
+    def wrapped(*args):
+        if not any(getattr(x, "dtype", None) == jnp.float32
+                   for x in jax.tree.leaves(args)):
+            return fn(*args)
+        if not jax.config.jax_enable_x64:
+            raise ValueError(
+                "the chain recurrences run in float64: enable 64-bit types "
+                "(jax.config.update('jax_enable_x64', True)) before "
+                "running the engine on float32 data"
+            )
+        up = jax.tree.map(
+            lambda x: x.astype(jnp.float64)
+            if getattr(x, "dtype", None) == jnp.float32 else x,
+            args,
+        )
+        return jax.tree.map(
+            lambda x: x.astype(jnp.float32) if x.dtype == jnp.float64 else x,
+            fn(*up),
+        )
+
+    return wrapped
 
 
 def block_cholesky(A: BlockTridiag) -> tuple[jnp.ndarray, jnp.ndarray]:
@@ -282,9 +319,9 @@ def _guarded_logdet(pivots, diag, msgs):
     positive-definiteness at working precision and the "logdet" is
     garbage — returning NaN makes line searches REJECT such trials, the
     behavior the reference gets for free from f64 chol of indefinite
-    proposals (PERF.md section 14: f32 tiny-noise pivots instead produced
-    hugely negative accepted "costs").  Mirrors the lanes kernels'
-    in-kernel guard (kernels/chain_lanes._pivot_trust).
+    proposals (f32 tiny-noise pivots instead produced
+    hugely negative accepted "costs").  Mirrors the chain kernel's
+    in-kernel guard (kernels/chain_block._pivot_trust).
     """
     l = chol_small(pivots)
     ldiag = jnp.diagonal(l, axis1=-2, axis2=-1)

@@ -2,8 +2,8 @@
 
 The sequential GBP sweeps and Thomas solves in :mod:`.blocktridiag` have
 O(N) sequential depth — fine for short chains, but the chain length is this
-workload's "sequence" axis (SURVEY.md section 5.7) and on TPU the scans are
-latency-bound.  This module reformulates all three chain recurrences as
+workload's "sequence" axis (SURVEY.md section 5.7) and on an accelerator
+the scans are latency-bound.  This module reformulates all three chain recurrences as
 ``jax.lax.associative_scan`` prefix computations with O(log N) depth:
 
 1.  **Schur/GBP messages.**  The forward message recurrence

@@ -1,21 +1,15 @@
 """Pinned-precision contractions for the framework's small-block algebra.
 
-On TPU, XLA lowers f32 ``einsum``/``@`` to MXU passes at DEFAULT matmul
-precision — a single bf16 pass (~8 mantissa bits per product).  For this
-framework that is pure accuracy loss with no meaningful speed win: every
-contraction here is tiny-block algebra (d, s <= 8 states; M <= a few hundred
-sigma points), nowhere near MXU-bound.  Measured on a v5e against a float64
-host oracle at the bench operating point (see PERF.md):
-
-    moments path, DEFAULT precision : rel err 4.1e-05 / 2.2e-03 / 2.1e-02
-                                      on (E[phi], E[(x-mu)phi], E[xx^T phi])
-    moments path, HIGHEST precision : 3.3e-06 / 5.6e-06 / 1.3e-06
-    Pallas fused kernel (f32 VPU)   : 1.7e-06 / 5.6e-06 / 1.4e-06
-
-Two digits lost silently on the Hessian moment is exactly the kind of
-backend-dependent divergence the golden-trajectory guarantees (1e-9 vs the
-reference CSVs) cannot tolerate, so every accuracy-bearing contraction in
-the package routes through these wrappers.  On CPU the kwarg is a no-op.
+At DEFAULT matmul precision an accelerator may compute a float32
+``einsum``/``@`` at reduced precision: on an NVIDIA H100, XLA may run float32
+products in TF32 (~10 mantissa bits).  For this framework that is pure
+accuracy loss with no meaningful speed win: every contraction here is
+tiny-block algebra (d, s <= 8 states; M <= a few hundred sigma points),
+far from tensor-core-bound, and reduced-precision products cost the
+Hessian moment E[(x-mu)(x-mu)^T phi] digits the optimizer needs.  So every
+accuracy-bearing contraction in the package routes through these wrappers
+at ``HIGHEST``, which on the H100 is true float32 (no TF32).  On the CPU
+the kwarg is a no-op.
 """
 
 from __future__ import annotations
@@ -39,7 +33,7 @@ def get_contraction_precision():
 
 
 def einsum(*args, **kwargs):
-    """jnp.einsum with full-f32 MXU accumulation (6-pass for f32 operands)."""
+    """jnp.einsum at the pinned precision (true float32 products)."""
     return jnp.einsum(*args, precision=_PRECISION, **kwargs)
 
 

@@ -6,8 +6,8 @@ blocks this framework lives on (steady-state profiling showed the batched
 4x4 factorizations dominating each line-search trial, not the chain kernel).
 These routines unroll the Cholesky-Banachiewicz recurrences over the static
 matrix dimension into pure elementwise ops on the batch, which XLA fuses
-into the surrounding computation — the same trick the lanes Pallas kernel
-uses internally (kernels/chain_lanes.py), applied at the XLA level so every
+into the surrounding computation — the same trick the Pallas chain kernel
+uses internally (kernels/chain_block.py), applied at the XLA level so every
 caller (sigma-point placement, marginal precisions, the seq chain backend)
 benefits on any backend.
 

@@ -1,20 +1,25 @@
-"""Multi-process (multi-host) execution: the dp axis over DCN.
+"""Multi-process execution: the dp axis across processes.
 
 The reference is strictly single-process — its parallelism is OpenMP
 threads and one CUDA device (SURVEY.md section 5.8).  Here the
 data-parallel problem axis spans PROCESSES: ``jax.distributed``
 initialization, one global (dp, fp) mesh over every process's devices,
 global arrays built from identically-constructed host data, and the same
-:func:`.sharding.optimize_sharded` loop — the dp all-reduce-free problem
-axis rides DCN between hosts while fp's psum stays on ICI within each
-host's chips.
+:func:`.sharding.optimize_sharded` loop — the all-reduce-free problem axis
+spans processes while fp's psum stays within each process's devices.
 
-Launch (one process per host):
+Launch (one process each):
 
     python -m gaussianvi_tpu.parallel.multiprocess \
-        --coordinator HOST:PORT --num-processes P --process-id I
+        --coordinator HOST:PORT --num-processes P --process-id I \
+        [--local-device-ids 0,1]
 
-On TPU pods each process sees its local chips automatically; for
+A JAX process reserves most of each card's memory when it first uses
+it, so several processes on ONE GPU host must each open only their own
+cards: pass ``--local-device-ids`` (``jax.distributed.initialize``'s
+``local_device_ids``), e.g. process I of four on a four-card host gets
+``--local-device-ids I``.  Nothing tells JAX of a cluster: the
+coordinator address, process count and id are always explicit.  For
 plumbing tests without hardware, ``--cpu-devices K`` gives each process K
 virtual CPU devices (this is what tests/test_multiprocess.py does with 2
 processes x 4 devices).
@@ -32,11 +37,13 @@ def initialize_multiprocess(
     num_processes: int,
     process_id: int,
     cpu_devices: int | None = None,
+    local_device_ids: list[int] | None = None,
 ) -> None:
     """Initialize jax.distributed.  Call before any other JAX use.
 
     ``cpu_devices``: force the CPU backend with that many virtual devices
-    per process (testing without hardware).
+    per process (testing without hardware).  ``local_device_ids``: the
+    cards this process opens (several processes on one GPU host).
     """
     if cpu_devices is not None:
         flags = os.environ.get("XLA_FLAGS", "")
@@ -52,6 +59,7 @@ def initialize_multiprocess(
         coordinator_address=coordinator_address,
         num_processes=num_processes,
         process_id=process_id,
+        local_device_ids=local_device_ids,
     )
 
 
@@ -79,11 +87,17 @@ def _demo_main(argv=None) -> int:
     ap.add_argument("--num-processes", type=int, required=True)
     ap.add_argument("--process-id", type=int, required=True)
     ap.add_argument("--cpu-devices", type=int, default=None)
+    ap.add_argument("--local-device-ids", default=None,
+                    help="comma-separated cards this process opens")
     args = ap.parse_args(argv)
 
     initialize_multiprocess(
         args.coordinator, args.num_processes, args.process_id,
         cpu_devices=args.cpu_devices,
+        local_device_ids=(
+            [int(i) for i in args.local_device_ids.split(",")]
+            if args.local_device_ids else None
+        ),
     )
     import jax
 
@@ -108,7 +122,7 @@ def _demo_main(argv=None) -> int:
         len(jax.devices()), n_proc, n_local,
     )
 
-    # dp rows = processes (DCN axis), fp columns = each process's devices
+    # dp rows = processes, fp columns = each process's devices
     mesh = Mesh(
         np.asarray(jax.devices()).reshape(n_proc, n_local), ("dp", "fp")
     )

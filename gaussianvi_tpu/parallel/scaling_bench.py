@@ -2,8 +2,8 @@
 
 North-star target (BASELINE.json): >= 0.8 scaling efficiency on
 factor-parallel throughput at N >= 2 hosts.  This harness measures sharded
-NGD-step throughput across mesh shapes on whatever devices exist (real TPU
-pod slice, or the virtual CPU mesh for plumbing validation — virtual devices
+NGD-step throughput across mesh shapes on whatever devices exist (several
+GPUs, or the virtual CPU mesh for plumbing validation — virtual devices
 share host cores, so efficiency numbers are only meaningful on hardware).
 
 Usage:

@@ -39,12 +39,13 @@ import numpy as np
 from jax import lax
 from jax.sharding import Mesh, PartitionSpec as P
 
+from .. import resolve
 from ..factors import moments as mm
 from ..inference.config import GVIConfig
 from ..inference.graph import FactorGraph, GaussianState
 from ..inference.gvi import _bw_jko_step
 from ..inference.optimize import GVIHistory, concat_factor_costs, run_gvi
-from ..ops.blocktridiag import BlockTridiag
+from ..ops.blocktridiag import BlockTridiag, in_float64
 from .chain_seqpar import gbp_covariance_logdet_seqpar, solve_seqpar
 from ..ops.precision import einsum
 
@@ -160,14 +161,20 @@ class TimeShardEngine:
     # loop-carried scalars derive only from psum'd (sp-invariant) values
     carry_axes: tuple[str, ...] = ()
 
-    def __init__(self, graph: FactorGraph, config, axis: str = "sp"):
+    def __init__(self, graph: FactorGraph, config, axis: str = "sp",
+                 platform: str | None = None):
         self.graph = graph
         self.config = config
         self.axis = axis
+        self.sqrtm_method = resolve.sqrtm_method(
+            platform or resolve.target_platform(), "auto"
+        )
 
     # -- chain ---------------------------------------------------------------
     def cov_logdet(self, prec: BlockTridiag):
-        return gbp_covariance_logdet_seqpar(prec.diag, prec.off, self.axis)
+        return in_float64(gbp_covariance_logdet_seqpar)(
+            prec.diag, prec.off, self.axis
+        )
 
     # -- costs ---------------------------------------------------------------
     def factor_costs_raw(self, mu_l, cov_diag, cov_off, eval_dtype=None):
@@ -258,7 +265,9 @@ class TimeShardEngine:
                 rdim=fb.quad_rdim,
             )
             b_k, s_k = mm.bw_local_gradients(e_phi, e_xmu, e_xxt, cov_diag)
-            vd, vdd = _bw_jko_step(b_k, s_k, cov_diag, step_size)
+            vd, vdd = _bw_jko_step(
+                b_k, s_k, cov_diag, step_size, self.sqrtm_method
+            )
             dmu = dmu + vd
             dpd = dpd + vdd
 
@@ -278,7 +287,8 @@ class TimeShardEngine:
             s_k = einsum(
                 "kra,krs,ksb->kab", lb.lam, lb.target_prec, lb.lam
             )
-            vd, vdd = _bw_jko_step(b_k, s_k, ck, step_size)
+            vd, vdd = _bw_jko_step(b_k, s_k, ck, step_size,
+                                   self.sqrtm_method)
             mask = (lb.constant != 0).astype(mu_l.dtype)
             vd = vd * mask[:, None]
             vdd = vdd * mask[:, None, None]
@@ -294,8 +304,9 @@ class TimeShardEngine:
     # -- solve ---------------------------------------------------------------
     def solve_pair(self, bt_main: BlockTridiag, bt_fallback: BlockTridiag,
                    rhs):
-        x_main = solve_seqpar(bt_main.diag, bt_main.off, rhs, self.axis)
-        x_fb = solve_seqpar(bt_fallback.diag, bt_fallback.off, rhs, self.axis)
+        solve = in_float64(solve_seqpar)
+        x_main = solve(bt_main.diag, bt_main.off, rhs, self.axis)
+        x_fb = solve(bt_fallback.diag, bt_fallback.off, rhs, self.axis)
         return x_main, x_fb
 
     def all_finite(self, x) -> jnp.ndarray:
@@ -308,7 +319,7 @@ class TimeShardEngine:
 
 def _chain_graph_specs(graph: FactorGraph) -> FactorGraph:
     # dataclasses.replace keeps ALL static metadata (nb, cost fns,
-    # slice_offset, uniform, shared_start, ...) so the spec prefix tree's
+    # slice_offset, ...) so the spec prefix tree's
     # treedef always matches the real graph's
     def nl_spec(fb):
         return replace(
@@ -369,7 +380,9 @@ def optimize_time_sharded(
         out_specs=(state_spec, hist_spec),
     )
     def run(graph_loc, state_loc):
-        engine = TimeShardEngine(graph_loc, config)
+        engine = TimeShardEngine(
+            graph_loc, config, platform=resolve.mesh_platform(mesh)
+        )
         return run_gvi(engine, state_loc, config, method)
 
     final, hist = jax.jit(run)(

@@ -1,18 +1,16 @@
-"""Device benchmarks for the PLANNING workloads (VERDICT r2 item 2b).
+"""GPU benchmark of the planning workloads.
 
 The reference's timing harness times the planning configuration
 (gvibase/GVI-GH-Cuda-impl.h:289-460 `factor_cost_vector_cuda_time`,
-:463-527 `time_test`); until round 3 the repo's committed device numbers
-covered only chain estimation.  This script measures, on the real device:
+:463-527 `time_test`).  This script measures, on the GPU:
 
 * planar point-robot planning (CudaOperation_PlanarPR analog) — NGD + prox
 * 3-D point-robot planning (CudaOperation_3dpR analog) — NGD + prox
 
-each as a B-restart batch (the production pattern: parallel perturbed
-restarts of one planning problem, `parallel/restarts.py`), with the
-obstacle quadrature on (a) the exact XLA path and (b) the opt-in
-patch-window lanes path (factors/robots.make_patch_cost_*), interleaved in
-one process (bimodal device, PERF.md section 5).
+each as a B-restart batch (parallel perturbed restarts of one planning
+problem, `parallel/restarts.py`), with the SDF lookup by gathers and by
+one-hot hat contractions (``interp``), interleaved in one process.  Rates
+are restarts x iterations over the median of timed runs (float32 data).
 
     python scripts/planning_bench.py [--restarts B] [--niters I]
 """
@@ -20,8 +18,10 @@ one process (bimodal device, PERF.md section 5).
 from __future__ import annotations
 
 import argparse
+import statistics
 import sys
 import time
+from dataclasses import replace
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
@@ -30,100 +30,71 @@ import jax
 import jax.numpy as jnp
 
 
-def _sync(x):
-    return float(jnp.sum(jax.tree.leaves(x)[0]))
-
-
-def bench_case(name, build_fn, patch_size, restarts, niters, methods,
-               pipeline=12, rounds=3):
-    from dataclasses import replace
-
+def bench_case(name, build_fn, restarts, niters, methods, rounds=5):
+    from gaussianvi_tpu.inference.optimize import optimize
     from gaussianvi_tpu.parallel.restarts import perturb_inits
 
     variants = {}
-    for label, kw in (
-        # interp pinned per variant: "auto" now resolves to matmul on TPU.
-        # "matmul" rides the round-5 defaults (configuration-marginal
-        # quadrature, factors.robots.marginal_rule); "matmul-full" pins
-        # the old full-state rule to isolate the marginal-quad gain.
-        ("xla", {"interp": "gather"}),
-        ("patch", {"patch_size": patch_size, "interp": "gather"}),
-        ("matmul", {"interp": "matmul"}),
-        ("matmul-full", {"interp": "matmul", "marginal_quad": False}),
-    ):
-        graph, init, config, _ = build_fn(gh_degree=3, **kw)
-        config = replace(
-            config, niters=niters, niters_lowtemp=niters,
-            chain_impl="lanes",
-            quad_impl="lanes" if label == "patch" else "xla",
+    for interp in ("gather", "matmul"):
+        graph, init, config, _ = build_fn(
+            gh_degree=3, interp=interp, dtype=jnp.float32
         )
+        config = replace(config, niters=niters, niters_lowtemp=niters)
         init_b = perturb_inits(
             init, jax.random.key(0), restarts, mean_scale=0.3
         )
-        variants[label] = (graph, init_b, config)
+        variants[interp] = (graph, init_b, config)
 
     for method in methods:
         runs = {}
         for label, (graph, init_b, config) in variants.items():
             run = jax.jit(jax.vmap(
                 lambda s0, g=graph, c=config, m=method:
-                    optimize_cost(g, s0, c, m)
+                    optimize(g, s0, c, method=m)[1].cost[-1]
             ))
             t0 = time.perf_counter()
-            final_costs = run(init_b)
-            _sync(final_costs)
+            final_costs = jax.block_until_ready(run(init_b))
             print(f"  {name}/{method}/{label}: compile+first "
                   f"{time.perf_counter() - t0:.0f}s, median final cost "
                   f"{float(jnp.median(final_costs)):.4f}", flush=True)
             runs[label] = run
-        best = {k: float("inf") for k in runs}
+        times = {k: [] for k in runs}
         for _ in range(rounds):
             for label, run in runs.items():
-                init_b = variants[label][1]
                 t0 = time.perf_counter()
-                outs = [run(init_b) for _ in range(pipeline)]
-                _sync(outs[-1])
-                best[label] = min(
-                    best[label], (time.perf_counter() - t0) / pipeline
-                )
-        for label, dt in best.items():
+                jax.block_until_ready(run(variants[label][1]))
+                times[label].append(time.perf_counter() - t0)
+        for label, ts in times.items():
+            dt = statistics.median(ts)
             print(f"  {name}/{method}/{label}: "
                   f"{restarts * niters / dt:10.1f} prob-iters/s "
                   f"({dt * 1e3:.2f} ms/call)", flush=True)
 
 
-def optimize_cost(graph, s0, config, method):
-    from gaussianvi_tpu.inference.optimize import optimize
-
-    _, hist = optimize(graph, s0, config, method=method)
-    return hist.cost[-1]
-
-
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--restarts", type=int, default=64)
+    ap.add_argument("--restarts", type=int, default=512)
     ap.add_argument("--niters", type=int, default=10)
     ap.add_argument("--cases", default="planar,point3d")
     ap.add_argument("--methods", default="ngd,prox")
     args = ap.parse_args()
+    if jax.default_backend() != "gpu":
+        raise SystemExit("planning_bench measures the GPU; JAX found none")
+    jax.config.update("jax_enable_x64", True)
 
     from gaussianvi_tpu.examples.planar_planning import build_planar_planning
     from gaussianvi_tpu.examples.point3d_planning import build_point3d_planning
 
-    print("platform:", jax.devices()[0].platform, flush=True)
-    t0 = time.perf_counter()
-    _sync(jax.jit(lambda x: (x @ x).sum())(jnp.eye(128)))
-    print(f"warmup {time.perf_counter() - t0:.0f}s", flush=True)
-
+    print("device:", jax.devices()[0].device_kind, flush=True)
     methods = args.methods.split(",")
     if "planar" in args.cases:
         print(f"planar planning (N=20, s=4, B={args.restarts}):", flush=True)
-        bench_case("planar", build_planar_planning, 16, args.restarts,
+        bench_case("planar", build_planar_planning, args.restarts,
                    args.niters, methods)
     if "point3d" in args.cases:
         print(f"3-D point planning (N=20, s=6, B={args.restarts}):",
               flush=True)
-        bench_case("point3d", build_point3d_planning, 8, args.restarts,
+        bench_case("point3d", build_point3d_planning, args.restarts,
                    args.niters, methods)
 
 

@@ -124,61 +124,7 @@ class TestTensorRuleExactness:
         assert diff.max() > 1e-3
 
 
-class TestKernelLift:
-    def test_quad_lanes_moments_match_xla_lift(self):
-        """The lanes quadrature kernel's in-kernel e_xxt lift (interpret
-        mode) == gh_moments' closed-form lift."""
-        from gaussianvi_tpu.kernels.quad_lanes import quad_lanes
-
-        d, r, k, b = 4, 2, 3, 5
-        rng = np.random.default_rng(2)
-        mu = jnp.asarray(rng.standard_normal((b, k, d)), jnp.float32)
-        cov = jnp.asarray(_rand_spd(rng, k, d), jnp.float32)
-        cov = jnp.broadcast_to(cov, (b, k, d, d))
-        nr, wr = get_rule(r, 4, kind="sparse")
-        nodes = jnp.asarray(
-            np.concatenate([nr, np.zeros((nr.shape[0], d - r))], axis=1),
-            jnp.float32,
-        )
-        weights = jnp.asarray(wr, jnp.float32)
-
-        def lanes_cost(x):
-            return jnp.sin(x[0]) + (x[0] * x[1]) ** 2 + 0.1 * x[1] ** 4
-
-        out = quad_lanes(mu, cov, nodes, weights, lanes_cost,
-                         with_moments=True, interpret=True, rdim=r)
-        assert out is not None
-        ref = jax.vmap(
-            lambda m, c: mm.gh_moments(
-                nodes, weights, m, c, _pos_cost, None, rdim=r
-            )
-        )(mu, cov)
-        for a, b_ in zip(out, ref):
-            np.testing.assert_allclose(
-                np.asarray(a), np.asarray(b_), rtol=2e-5, atol=2e-5
-            )
-
-    def test_fused_specs_carry_rdim(self):
-        """The engine's fused kernel specs carry quad_rdim, and the fused
-        path stays eligible for marginal batches."""
-        from gaussianvi_tpu.examples.chain_estimation import (
-            build_chain_estimation,
-        )
-        from gaussianvi_tpu.inference import GVIConfig
-        from gaussianvi_tpu.inference.engine import LocalEngine
-
-        graph, _, _ = build_chain_estimation(
-            num_states=8, dim_x=2, gh_degree=4
-        )
-        (fb,) = graph.nonlinear
-        assert fb.quad_rdim == 2
-        assert fb.nodes.shape[0] == 29          # rule(2, 4) vs rule(4, 4)=137
-        cfg = GVIConfig(niters=4, chain_impl="lanes")
-        eng = LocalEngine(graph, cfg)
-        assert eng.fused_gradient_ready
-        nl_specs = eng._fused_spec_cache[0]
-        assert nl_specs[0].rdim == 2
-
+class TestFlagshipLift:
     def test_flagship_marginal_matches_full_e2e(self):
         """chain_estimation end-to-end: marginal (29-node) vs full-state
         (137-node) quadrature converge to the same posterior."""
@@ -244,18 +190,22 @@ class TestPlannerIntegration:
         assert true_m <= true_f * 1.05, (true_m, true_f)
 
     def test_matmul_interp_factors_use_xla_quadrature(self):
-        """The planner's matmul-interp factors carry no lanes_cost (the
-        SDF contraction is the XLA fast path), so quad_impl='lanes' falls
-        back to XLA — where the marginal lift lives in gh_moments."""
+        """The planner's matmul-interp factors integrate the configuration
+        marginal: batch_moments is gh_moments with the batch's rdim lift."""
         from gaussianvi_tpu.examples.planar_planning import (
             build_planar_planning,
         )
 
-        g_m, init, _, _ = build_planar_planning(gh_degree=3)
+        g_m, init, _, _ = build_planar_planning(gh_degree=3, interp="matmul")
         (fb,) = g_m.nonlinear
-        assert fb.lanes_cost is None and fb.quad_rdim == 2
-        assert not mm._lanes_eligible(fb, None, True)
-        assert not mm._lanes_eligible(fb, None, False)
+        assert fb.quad_rdim == 2
+        mu_k = init.mu[:3]
+        cov_k = jnp.broadcast_to(0.3 * jnp.eye(4), (3, 4, 4))
+        got = mm.batch_moments(fb, mu_k, cov_k)
+        ref = mm.gh_moments(fb.nodes, fb.weights, mu_k, cov_k, fb.cost_fn,
+                            fb.params, rdim=2)
+        for a, b in zip(got, ref):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
     @pytest.mark.parametrize("builder", ["point3d", "quad", "arm"])
     def test_other_planners_build_and_descend(self, builder):

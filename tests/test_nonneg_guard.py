@@ -2,8 +2,8 @@
 
 The signed-weight sparse-GH sum of a NONNEGATIVE integrand (every
 reference cost: squared residuals, hinge losses) can only go negative two
-ways: f32 summation garbage (the PERF section-27 7/1024 device collapse
-class — poisoned to NaN inside the ~4096-ulp rounding band,
+ways: f32 summation garbage (an accept-collapse class — poisoned to NaN
+inside the ~4096-ulp rounding band,
 moments._NONNEG_BAND), or genuine quadrature error of the signed-weight
 rule on a kinked integrand (an f64 evaluation — and the reference —
 computes and uses the same value: kept; e.g. the arm planner's initial
@@ -81,34 +81,9 @@ class TestXLAPath:
         assert np.isfinite(np.asarray(with_g)).all()
 
 
-class TestLanesPath:
-    def _lanes_setup(self, weights):
-        k, d, b = 2, 2, 4
-        f32 = jnp.float32
-        nodes = jnp.zeros((8, d), f32)
-        w = jnp.zeros((8,), f32).at[: len(weights)].set(
-            jnp.asarray(weights, f32)
-        )
-        mu = jnp.zeros((b, k, d), f32)
-        cov = jnp.broadcast_to(jnp.eye(d, dtype=f32), (b, k, d, d))
-        lanes_cost = lambda x: jnp.ones_like(x[0])
-        return mu, cov, nodes, w, lanes_cost
-
-    def test_lanes_kernel_band_poison(self):
-        """The quad_lanes cost variant applies the same band contract
-        (interpret mode on CPU)."""
-        from gaussianvi_tpu.kernels.quad_lanes import quad_lanes
-
-        args = self._lanes_setup(_BAND_GARBAGE)
-        out = quad_lanes(*args, interpret=True, nonneg=True)
-        assert out is not None
-        assert np.isnan(np.asarray(out)).all()
-        out2 = quad_lanes(*self._lanes_setup(_QUAD_NEGATIVE),
-                          interpret=True, nonneg=True)
-        np.testing.assert_allclose(np.asarray(out2), -0.5, rtol=1e-6)
-
+class TestFactorBatchPath:
     def test_batch_phi_plumbs_contract(self):
-        """batch_phi forwards fb.nonneg_cost on the XLA path."""
+        """batch_phi forwards fb.nonneg_cost."""
         from gaussianvi_tpu.factors.base import make_nonlinear_batch
 
         f32 = jnp.float32

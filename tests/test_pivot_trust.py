@@ -1,10 +1,9 @@
-"""Pivot-trust guard on the chain logdet (VERDICT r3 items 2b/7).
+"""Pivot-trust guard on the chain logdet.
 
-PERF.md section 14: the separate-kernel f32 accept loop collapsed on
-~dozens of ordinary problems because a near-indefinite trial precision's
-Cholesky produced tiny POSITIVE rounding-noise pivots — a hugely negative
-finite "logdet" that the line search then accepted.  The guard
-(chain_lanes._pivot_trust / blocktridiag._guarded_logdet) poisons the
+An f32 accept loop can collapse when a near-indefinite trial precision's
+Cholesky produces tiny POSITIVE rounding-noise pivots — a hugely negative
+finite "logdet" that the line search then accepts.  The guard
+(chain_block._pivot_trust / blocktridiag._guarded_logdet) poisons the
 logdet with NaN when any pivot retains fewer than ~3 significant bits, so
 such trials are REJECTED like the reference's f64-NaN non-SPD proposals.
 """
@@ -12,7 +11,7 @@ such trials are REJECTED like the reference's f64-NaN non-SPD proposals.
 import numpy as np
 import jax.numpy as jnp
 
-from gaussianvi_tpu.kernels.chain_lanes import gbp_covariance_logdet_lanes
+from gaussianvi_tpu.kernels.chain_block import gbp_covariance_logdet_kernel
 from gaussianvi_tpu.ops.blocktridiag import (
     BlockTridiag,
     _guarded_logdet,
@@ -60,9 +59,11 @@ class TestChainPaths:
         *_, ld = gbp_covariance_logdet(BlockTridiag(diag, off))
         assert np.isnan(float(ld))
 
-    def test_lanes_path_poisons(self):
+    def test_kernel_path_poisons(self):
         diag, off = self._cancelling_chain()
-        *_, ld = gbp_covariance_logdet_lanes(diag[None], off[None])
+        *_, ld = gbp_covariance_logdet_kernel(
+            diag[None], off[None], block=1, interpret=True
+        )
         assert np.isnan(float(ld[0]))
 
     def test_paths_agree_on_healthy_chain(self):
@@ -77,6 +78,8 @@ class TestChainPaths:
         _, _, ld_scan = jax.vmap(
             lambda dd, oo: gbp_covariance_logdet(BlockTridiag(dd, oo))
         )(d, o)
-        _, _, ld_lanes = gbp_covariance_logdet_lanes(d, o)
+        _, _, ld_kernel = gbp_covariance_logdet_kernel(
+            d, o, block=4, interpret=True
+        )
         assert np.isfinite(np.asarray(ld_scan)).all()
-        np.testing.assert_allclose(ld_lanes, ld_scan, rtol=1e-12)
+        np.testing.assert_allclose(ld_kernel, ld_scan, rtol=1e-12)

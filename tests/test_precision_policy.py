@@ -1,10 +1,10 @@
 """Static policy test: accuracy-bearing contractions use pinned precision.
 
-On TPU, DEFAULT matmul precision lowers f32 einsum/@ to one bf16 MXU pass,
-which was measured to cost the Hessian moment E[(x-mu)(x-mu)^T phi] two
-decimal digits (2.1e-2 rel err vs a float64 oracle — see PERF.md and
-scripts/adjudicate_precision.py).  ops/precision.py pins HIGHEST precision;
-this test keeps new contractions from silently reintroducing the loss.
+At DEFAULT matmul precision an accelerator may compute a float32
+einsum/@ at reduced precision (TF32 on an NVIDIA GPU, ~3 decimal digits),
+which costs the Hessian moment E[(x-mu)(x-mu)^T phi] digits the optimizer
+needs.  ops/precision.py pins HIGHEST precision; this test keeps new
+contractions from silently reintroducing the loss.
 """
 
 import pathlib
@@ -52,7 +52,7 @@ def test_no_bare_contractions(rel):
     ]
     assert not offenders, (
         f"{rel} has contractions not routed through ops.precision "
-        f"(DEFAULT matmul precision is bf16 on TPU): {offenders}"
+        f"(DEFAULT matmul precision may be TF32): {offenders}"
     )
 
 

@@ -67,7 +67,7 @@ class TestPlanarSDF:
                 np.testing.assert_allclose(got, self.data[r, c], rtol=1e-12)
 
     def test_matmul_interp_matches_gather(self):
-        """The one-hot hat-function MXU formulation is the SAME bilinear
+        """The one-hot hat-function matmul formulation is the SAME bilinear
         blend (clamping included) — the planning fast path must be
         value-identical to the gather port."""
         rng = np.random.default_rng(3)

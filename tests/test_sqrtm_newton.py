@@ -1,16 +1,14 @@
 """Eigh-free JKO root: scaled Denman-Beavers vs the eigh oracle.
 
-On TPU the batched 4x4 ``jnp.linalg.eigh`` custom-call measured 86% of
-the whole prox iteration (PERF.md round-5 prox trace), so
-``ops.psd.sqrtm_product`` gained ``method='newton'`` — a
-determinant-scaled Denman-Beavers iteration built entirely on the
-loop-free small-matrix Cholesky algebra.  ``'auto'`` uses it on TPU
-processes only; CPU (and the f64 golden-parity path) keeps eigh.
+``ops.psd.sqrtm_product`` has ``method='newton'`` — a determinant-scaled
+Denman-Beavers iteration built entirely on the loop-free small-matrix
+Cholesky algebra — beside the eigenbasis form.  ``'auto'`` resolves per
+platform (gaussianvi_tpu.resolve.sqrtm_method); the CPU (the f64
+golden-parity path) keeps eigh.
 """
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -66,12 +64,18 @@ class TestNewtonVsEigh:
         assert rel < 2e-4, rel
 
     def test_auto_resolves_by_backend(self):
-        """CPU processes keep eigh (bit-stable golden-parity path)."""
+        """'auto' is the resolver's choice for the target platform: eigh on
+        the CPU (bit-stable golden-parity path), the measured default on
+        the GPU."""
+        from gaussianvi_tpu import resolve
+
         a = jnp.asarray(_spd(np.random.default_rng(3), 4, 4, 10.0))
+        assert resolve.target_platform() == "cpu"
+        assert resolve.sqrtm_method("cpu", "auto") == "eigh"
+        assert resolve.sqrtm_method("gpu", "auto") in ("eigh", "newton")
         auto = np.asarray(sqrtm_product(a, 0.59))
-        if jax.default_backend() != "tpu":
-            eigh = np.asarray(sqrtm_product(a, 0.59, method="eigh"))
-            np.testing.assert_array_equal(auto, eigh)
+        eigh = np.asarray(sqrtm_product(a, 0.59, method="eigh"))
+        np.testing.assert_array_equal(auto, eigh)
 
     def test_prox_e2e_newton_matches_eigh(self):
         """Full prox loop with the newton root vs the eigh root: same
@@ -86,20 +90,15 @@ class TestNewtonVsEigh:
             num_states=8, dim_x=1, gh_degree=4
         )
         cfg = GVIConfig(niters=8, niters_lowtemp=8, step_size_base=0.9)
-        real = gvi_mod.sqrtm_product
-        try:
-            gvi_mod.sqrtm_product = lambda a, s: sqrtm_product(
-                a, s, method="eigh"
-            )
-            _, h_e = optimize(graph, init, cfg, method="prox")
-            gvi_mod.sqrtm_product = lambda a, s: sqrtm_product(
-                a, s, method="newton"
-            )
-            optimize.clear_cache()
-            _, h_n = optimize(graph, init, cfg, method="prox")
-        finally:
-            gvi_mod.sqrtm_product = real
-            optimize.clear_cache()
+        run = optimize.__wrapped__  # traced afresh for each root
+        hist = {}
+        with pytest.MonkeyPatch.context() as mp:
+            # the root the engine resolved is overridden by each method
+            for m in ("eigh", "newton"):
+                mp.setattr(gvi_mod, "sqrtm_product",
+                           lambda a, s, _, m=m: sqrtm_product(a, s, m))
+                hist[m] = run(graph, init, cfg, method="prox")[1]
+        h_e, h_n = hist["eigh"], hist["newton"]
         ce = np.asarray(h_e.cost, np.float64)
         cn = np.asarray(h_n.cost, np.float64)
         assert np.isfinite(cn).all()
